@@ -2,7 +2,7 @@
 """Capture-file loader throughput: python loops vs the native threaded C++
 loader (reference benchmark: multiBinReadThreaded, usrpRoutines.py:88).
 
-Host-side only (no TPU). Usage: python benchmarks/benchmark_binread.py [files] [samps]
+Host-side only (no device). Usage: python benchmarks/benchmark_binread.py [files] [samps]
 """
 import os
 import sys

@@ -14,9 +14,8 @@ localizationRoutines) in one runnable script:
   4. quality + accuracy bounds: QF^2 -> effective SNR -> Stein sigma_DTO
   5. persist to `XcorrDB`, then localize with a TDOA grid search
 
-Runs on CPU in a few seconds (`python examples/tdoa_pipeline.py`); the same
-code compiles to TPU where `fast_xcorr` routes through the fused Pallas CAF
-kernel automatically.
+Runs in a few seconds (`python examples/tdoa_pipeline.py`) on whatever
+device JAX finds: the GPU when there is one, else the CPU.
 """
 
 import sys
@@ -26,11 +25,8 @@ import tempfile
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
 
 from pydsproutines_tpu.signal import rand_psk_syms, add_sig_to_noise
 from pydsproutines_tpu.signal.creation import propagate_signal

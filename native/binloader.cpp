@@ -1,6 +1,6 @@
 // Threaded interleaved-int16 -> float32 binary capture loader.
 //
-// TPU-native equivalent of the reference's threaded file readers
+// Native equivalent of the reference's threaded file readers
 // (/root/reference/usrpRoutines.py:88 multiBinReadThreaded and the
 // FolderReader prefetch executor): the host-side data path that keeps the
 // chips fed. Files are striped across a std::thread pool; each thread reads

@@ -6,7 +6,7 @@ gridSearchTDOA :510, gridSearchFDOA :552, gridSearchTDOA_direct :620,
 gridSearchTDFD_direct :661, latlongrid_to_ecef :752, calcCRB_TD :814,
 calcCRB_TDFD :850, projectCRBtoEllipse :933).
 
-TPU-first design: grid searches are "vmap paradise" (SURVEY.md §7.8) — the
+Design: grid searches are "vmap paradise" (SURVEY.md §7.8) — the
 cost over (num_grid x num_measurements) is one broadcasted jax expression in a
 single jit, instead of the reference's per-measurement python loop.
 """

@@ -6,8 +6,9 @@ SortedFolderReader :374, GroupReader :597, GroupDatabase :685).
 
 The multi-file hot path uses the native threaded C++ loader
 (native/binloader.cpp — fread + int16->float32 striped across std::threads,
-writing straight into the numpy output buffer) when the shared library is
-built, with a ThreadPoolExecutor+numpy fallback. Readers prefetch upcoming
+writing straight into the numpy output buffer), built from native/Makefile
+into native/build/ on first use, with a ThreadPoolExecutor+numpy fallback
+where no C++ compiler is available. Readers prefetch upcoming
 files on a background executor so the device never waits on disk (the
 reference's futureBinRead pattern).
 """
@@ -16,41 +17,53 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import fcntl
 import fnmatch
+import functools
 import os
 import sqlite3
+import subprocess
 
 import numpy as np
 
-_NATIVE_PATHS = [
-    os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                 "libdspbinloader.so"),
-    os.path.join(os.path.dirname(__file__), "libdspbinloader.so"),
-]
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
 
 
+def _native_lib(name: str):
+    """ctypes handle of native/build/<name>, (re)built by make when missing
+    or older than its source; None when it neither exists nor builds. A
+    file lock keeps concurrent processes from building at once."""
+    path = os.path.join(_NATIVE_DIR, "build", name)
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(os.path.join(_NATIVE_DIR, "build", ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-s", "-C", _NATIVE_DIR, f"build/{name}"],
+                           check=True, capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        pass  # no toolchain: a library built earlier still serves
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        return None
+
+
+@functools.cache
 def _load_native():
-    for p in _NATIVE_PATHS:
-        p = os.path.abspath(p)
-        if os.path.exists(p):
-            try:
-                lib = ctypes.CDLL(p)
-                lib.load_int16_files.argtypes = [
-                    ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                    ctypes.c_long, ctypes.c_long,
-                    ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-                lib.load_int16_files.restype = ctypes.c_int
-                lib.load_int16_file.argtypes = [
-                    ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
-                    ctypes.POINTER(ctypes.c_float)]
-                lib.load_int16_file.restype = ctypes.c_int
-                return lib
-            except OSError:
-                continue
-    return None
+    lib = _native_lib("libdspbinloader.so")
+    if lib is not None:
+        lib.load_int16_files.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+            ctypes.c_long, ctypes.c_long,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+        lib.load_int16_files.restype = ctypes.c_int
+        lib.load_int16_file.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+            ctypes.POINTER(ctypes.c_float)]
+        lib.load_int16_file.restype = ctypes.c_int
+    return lib
 
-
-_native = _load_native()
 
 
 def simple_bin_read(filename, num_samps: int = -1, in_dtype=np.int16,
@@ -73,12 +86,13 @@ def multi_bin_read(filenames, num_samps: int, in_dtype=np.int16,
     when available."""
     filenames = list(filenames)
     n = len(filenames)
-    if (_native is not None and np.dtype(in_dtype) == np.int16
+    native = _load_native()
+    if (native is not None and np.dtype(in_dtype) == np.int16
             and np.dtype(out_dtype) == np.complex64):
         out = np.empty(n * num_samps * 2, dtype=np.float32)
         paths = (ctypes.c_char_p * n)(
             *[os.fsencode(f) for f in filenames])
-        rc = _native.load_int16_files(
+        rc = native.load_int16_files(
             paths, n, num_samps, offset,
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), threads)
         if rc != 0:
@@ -400,35 +414,21 @@ class GroupDatabase:
 # Streaming capture pipeline (native ring buffer)
 # ---------------------------------------------------------------------------
 
-_STREAM_PATHS = [
-    os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                 "libdspstream.so"),
-    os.path.join(os.path.dirname(__file__), "libdspstream.so"),
-]
-
-
+@functools.cache
 def _load_stream_native():
-    for p in _STREAM_PATHS:
-        p = os.path.abspath(p)
-        if os.path.exists(p):
-            try:
-                lib = ctypes.CDLL(p)
-                lib.stream_open.argtypes = [
-                    ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                    ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int]
-                lib.stream_open.restype = ctypes.c_void_p
-                lib.stream_next.argtypes = [
-                    ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
-                lib.stream_next.restype = ctypes.c_int
-                lib.stream_close.argtypes = [ctypes.c_void_p]
-                lib.stream_close.restype = None
-                return lib
-            except OSError:
-                continue
-    return None
+    lib = _native_lib("libdspstream.so")
+    if lib is not None:
+        lib.stream_open.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+            ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int]
+        lib.stream_open.restype = ctypes.c_void_p
+        lib.stream_next.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+        lib.stream_next.restype = ctypes.c_int
+        lib.stream_close.argtypes = [ctypes.c_void_p]
+        lib.stream_close.restype = None
+    return lib
 
-
-_stream_native = _load_stream_native()
 
 
 class StreamingCaptureLoader:
@@ -451,7 +451,7 @@ class StreamingCaptureLoader:
         self.filenames = [str(f) for f in filenames]
         self.samps_per_file = int(samps_per_file)
         self.halo = int(halo)
-        self._native = _stream_native
+        self._native = _load_stream_native()
         self._handle = None
         self._idx = 0
         if self._native is not None and self.filenames:

@@ -15,7 +15,7 @@ semantics into a restartable long-capture job:
     processing resumes at the first missing block.
 
 A crash between blocks loses at most one uncommitted block — the failure
-recovery model the reference implies and a multi-hour TPU capture job needs.
+recovery model the reference implies and a multi-hour capture job needs.
 """
 
 from __future__ import annotations

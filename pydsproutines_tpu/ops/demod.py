@@ -8,11 +8,11 @@ SimpleDemodulator8PSK :520; demodulateCP2FSK :1214; BurstyDemodulatorCP2FSK
 :1261; ML_demod_QPSK :1366) and the fused GPU chain in
 custom_kernels/demodulation.cu / eyeOpeningKernel.cu.
 
-TPU-first design: every stage is batched and branch-free. The phase lock uses
+Design: every stage is batched and branch-free. The phase lock uses
 the closed-form 2x2 symmetric eigen-decomposition (the same trick as the
 reference's lockPhase_mapSyms_singleBlkKernel_qpsk CUDA kernel,
 demodulation.cu:857-870) instead of an SVD; symbol mapping is a dot-product
-against constellation vectors (an MXU matmul); the preamble rotation search is
+against constellation vectors (a small matmul); the preamble rotation search is
 a one-hot gather-sum over (shift, rotation). Everything vmaps over bursts.
 """
 
@@ -95,12 +95,13 @@ def lock_phase(reim: jnp.ndarray, m: int):
 def map_syms(reimc: jnp.ndarray, m: int) -> jnp.ndarray:
     """Map phase-locked samples to symbol indices 0..m-1 by max dot product
     with the constellation vectors (reference mapSyms,
-    demodulationRoutines.py:112) — an MXU matmul over (N, 2) x (2, m)."""
+    demodulationRoutines.py:112) — a (N, 2) x (2, m) matmul at full f32."""
     const = jnp.asarray(PSK_CONSTS[m], dtype=reimc.dtype)
     rdt = real_dtype_for(reimc.dtype)
     vecs = jnp.stack([const.real, const.imag]).astype(rdt)   # (2, m)
     pts = jnp.stack([reimc.real, reimc.imag], axis=-1).astype(rdt)  # (N, 2)
-    metric = pts @ vecs                                      # (N, m)
+    metric = jnp.matmul(pts, vecs,
+                        precision=jax.lax.Precision.HIGHEST)  # (N, m)
     return jnp.argmax(metric, axis=-1).astype(jnp.uint8)
 
 
@@ -146,9 +147,8 @@ def map_syms_8psk(reimc: jnp.ndarray, eo_scaling) -> jnp.ndarray:
     idx1 = (c1z & cxmy2) | ((~c1z) & cx2)
     idx2 = (c1z & (cx3 | cy3)) | ((~c1z) & cy2)
     idx0 = c1z
-    # select chain over the 8 table entries (a 3-index table gather lowers
-    # to a scalar XLA gather per sample — measured 44x the whole QPSK chain
-    # for the analogous 2x2 map)
+    # select chain over the 8 table entries instead of a 3-index table
+    # gather
     lin = (idx0.astype(jnp.int32) * 4 + idx1.astype(jnp.int32) * 2
            + idx2.astype(jnp.int32))
     flat = np.asarray(map8).reshape(-1)
@@ -181,8 +181,8 @@ def syms_to_bits(syms: jnp.ndarray, m: int, bitmap=None,
     symsToBits, demodulationRoutines.py:244)."""
     bm = jnp.roll(jnp.asarray(PSK_BITMAPS[m] if bitmap is None else bitmap),
                   phase_sym_shift)
-    # rolled-bitmap lookup as selects (an m-entry table gather is scalar on
-    # TPU); bm may be traced (phase_sym_shift often is), so select on values
+    # rolled-bitmap lookup as m selects instead of a table gather; bm may
+    # be traced (phase_sym_shift often is), so select on values
     out = jnp.zeros(syms.shape, bm.dtype)
     for v in range(m):
         out = jnp.where(syms == v, bm[v], out)
@@ -361,7 +361,7 @@ def _psk_demod_batch_impl(xbatch, lengths, amble, *, m, osr, search_start,
                           search_len, amble_len, num_out_syms, variant):
     """Whole burst-batched chain in one trace: masked eye-opening -> masked
     2x2-eig phase lock -> constellation map -> preamble shift/rotation search
-    -> payload cut + rotate + bit unpack. The TPU re-expression of the
+    -> payload cut + rotate + bit unpack. The re-expression of the
     reference's one-block-per-burst fused kernel
     (custom_kernels/demodulation.cu:814, eyeOpeningKernel.cu:5): vmap over the
     burst axis replaces the CUDA block axis; XLA fuses the stages.
@@ -369,9 +369,8 @@ def _psk_demod_batch_impl(xbatch, lengths, amble, *, m, osr, search_start,
     B, L = xbatch.shape
     nsym = L // osr
     rdt = real_dtype_for(xbatch.dtype)
-    # phase-major (B, osr, nsym) layout: nsym rides the 128-lane axis. The
-    # natural reshape (B, nsym, osr) puts osr (often 4) on the lanes — a
-    # 32x padding blowup on EVERY elementwise pass of the chain.
+    # phase-major (B, osr, nsym) layout: the long nsym axis is minor (the
+    # natural reshape (B, nsym, osr) would put osr, often 4, there).
     xp = xbatch[:, : nsym * osr]
     x_po = jnp.stack([xp[:, p::osr] for p in range(osr)], axis=1)
     pos_po = (jnp.arange(nsym)[None, :] * osr
@@ -414,9 +413,8 @@ def _psk_demod_batch_impl(xbatch, lengths, amble, *, m, osr, search_start,
         syms = map_syms(reimc.reshape(-1), m).reshape(B, nsym)
 
     # -- preamble shift x rotation search (all bursts) ------------------------
-    # windows via a stack of STATIC slices (advanced-index gathers lower to
-    # scalar XLA gathers; per-(a, r) accumulate loops hit the small-op
-    # dispatch floor — 128 micro-ops measured 2.2 of 2.7 ms), then ONE
+    # windows via a stack of STATIC slices (instead of advanced-index
+    # gathers or per-(a, r) accumulate loops of small ops), then ONE
     # broadcast compare against all (rotation, position) targets
     shifts = search_start + jnp.arange(search_len)
     syms_i = syms.astype(jnp.int32)
@@ -455,7 +453,7 @@ def _psk_demod_batch_impl(xbatch, lengths, amble, *, m, osr, search_start,
     gathered = jnp.where(in_range, gathered, 0)
     bit_counts = jnp.sum(in_range, axis=1).astype(jnp.int32)
     bps = int(np.log2(m))
-    # tiny-table lookup as a select chain (VPU) instead of a gather
+    # tiny-table lookup as a select chain instead of a gather
     bmap = np.asarray(PSK_BITMAPS[m]).astype(np.int32)
     bitvals = jnp.zeros_like(gathered, dtype=jnp.int32)
     for v in range(m):

@@ -4,7 +4,7 @@ Reference semantics: /root/reference/filterRoutines.py (BurstDetector :792,
 cupyThresholdEdges :701, cupyGatherEdges :749, energyDetection :1031) and
 custom_kernels/thresholding.cu, peakfinding.cu.
 
-TPU-first design: data-dependent outputs (edge lists, peak lists, burst
+Design: data-dependent outputs (edge lists, peak lists, burst
 slices) become fixed-capacity arrays plus a count — the idiom the reference's
 own GPU kernels already use (thresholdEdges capacity+counts, findLocalMaxima
 maxNumPeaks) and the only shape-stable way under XLA. Invalid slots are filled

@@ -6,9 +6,9 @@ CupyFilter :57, CupyKernelFilter.getUpfirdnSize :130 / upfirdn kernels,
 cupyMultiMovingAverage :1129, cupyMovingAverage :1167, cupyComplexMovingSum
 :1206, resampleFactorWizard :1090) and custom_kernels/filter.cu / upfirdn.cu.
 
-TPU-first design: one jax implementation per op. Short-tap FIR runs as a
-direct correlation (XLA lowers to MXU-friendly convolution); long signals can
-use FFT overlap multiplication. Streaming state (the reference's ``delay``
+Design: one jax implementation per op. Short-tap FIR runs as a blocked
+Toeplitz matmul at full float32 precision; long taps can use FFT overlap
+multiplication. Streaming state (the reference's ``delay``
 members) is an explicit carry array so block processing works under jit with
 static shapes and no recompiles.
 """
@@ -36,11 +36,11 @@ def _conv_causal_matmul(taps: jnp.ndarray, x: jnp.ndarray,
     as a blocked-Toeplitz matmul.
 
     Output blocks of ``block`` samples each contract one (W = block+T-1)-wide
-    input window against a banded (W, block) tap matrix — a batched MXU
-    matmul (the reference's filter_smtaps shared-mem kernel,
-    custom_kernels/filter.cu:9, re-shaped for the systolic array). Also the
-    robust formulation for huge 1-D signals, where a direct XLA convolution
-    at spatial width ~1e6 compiles pathologically slowly.
+    input window against a banded (W, block) tap matrix — a batched matmul
+    (the reference's filter_smtaps shared-mem kernel,
+    custom_kernels/filter.cu:9). Also the robust formulation for huge 1-D
+    signals, where a direct XLA convolution at spatial width ~1e6 compiles
+    slowly.
     """
     T = taps.shape[-1]
     n = x.shape[-1]
@@ -86,7 +86,7 @@ def lfilter_fir(taps: jnp.ndarray, x: jnp.ndarray, method: str = "direct") -> jn
     """FIR filter: y[n] = sum_k taps[k] * x[n-k], output length == len(x)
     (reference cp_lfilter, filterRoutines.py:24: convolve(ftap, x)[:x.size]).
 
-    ``method``: "direct" (blocked-Toeplitz MXU matmul, short/medium taps) or
+    ``method``: "direct" (blocked-Toeplitz matmul, short/medium taps) or
     "fft" (overlap in frequency domain, better for very long taps)."""
     if method == "direct":
         return _conv_causal_matmul(taps, x)
@@ -168,14 +168,11 @@ def _upfirdn_poly_planes(planes: jnp.ndarray, taps_r: jnp.ndarray, up: int,
     qmax = int(qc_c[-1])
     Lw = Lh + qmax
 
-    # group Gp phase periods per output block so (a) the output lane dim is
-    # a MULTIPLE OF 128 — the final (rows, B, cols) -> (rows, n_out) flatten
-    # is then an aligned repack instead of a lane shuffle (measured 1.6 ms
-    # of a 4 ms upfirdn at cols=195) — and (b) the block stride Gp*S is
-    # ~half the window width, so the shifted-reshape window build reads the
-    # input ~2x instead of ceil(W/stride) times (measured 9 reads at the old
-    # ~192-output blocks). The raw per-period form has only P lanes (at
-    # up=5 a 5-wide minor axis: <5% lane utilization, 60+ ms for 4M).
+    # group Gp phase periods per output block so (a) the output minor dim
+    # is a multiple of 128 and (b) the block stride Gp*S is ~half the window
+    # width, so the shifted-reshape window build reads the input ~2x
+    # instead of ceil(W/stride) times. The raw per-period form has only P
+    # outputs per block (at up=5 a 5-wide minor axis).
     # Derivation: out[b*Gp*P + g*P + c] = sum_l Hp[p_c, l] * x[q - l] with
     # q = b*Gp*S + g*S + qc_c (exact: (Gp*P*down) % up == 0), so one
     # (rows, W) window per block against a banded (W, Gp*P) tap matrix.
@@ -209,7 +206,7 @@ def _upfirdn_poly_planes(planes: jnp.ndarray, taps_r: jnp.ndarray, up: int,
     xp = jnp.pad(planes, ((0, 0), (left, right)))
     rows = planes.shape[0]
     # win[r, b, t] = xp[r, b*Gp*S + t] via shifted reshapes (an XLA strided
-    # conv here compiles pathologically slowly at ~1e6 widths)
+    # conv here compiles slowly at ~1e6 widths)
     parts = [jax.lax.slice(xp, (0, i * stride),
                            (rows, i * stride + nblocks * stride))
              .reshape(rows, nblocks, stride) for i in range(rr)]
@@ -218,34 +215,6 @@ def _upfirdn_poly_planes(planes: jnp.ndarray, taps_r: jnp.ndarray, up: int,
                      # full f32 precision: filters are parity-grade ops
                      precision=jax.lax.Precision.HIGHEST)
     return out.reshape(rows, nblocks * cols)[:, :n_out]
-
-
-def _upfirdn_planes_dispatch(planes: jnp.ndarray, taps_r: jnp.ndarray,
-                             up: int, down: int, n_out: int,
-                             prec: str = "highest") -> jnp.ndarray:
-    """Real-tap planes core: fused Pallas kernel on TPU (windows built in
-    VMEM — no im2col HBM pass), XLA banded matmul elsewhere / for odd
-    shapes. Both compute the identical gp-block polyphase math.
-
-    ``prec``: "highest" (f32, ~5e-7 rel — the default; every production
-    caller uses it) or "bf16x3" (explicit hi/lo bf16 splits): EXPERIMENTAL
-    / interpret-grade only — on real Mosaic, DEFAULT-precision dot results
-    are bf16-rounded regardless of operand splitting, so bf16x3 measured
-    ~1.6e-3 rel on v5e (vs the 5e-6 interpret mode shows); it is retained
-    as the documented negative result (ROADMAP round-4 Mosaic precision
-    finding), not as a throughput mode. Pallas path only; the XLA
-    fallback always runs HIGHEST."""
-    if (planes.shape[0] <= 2 and jnp.float32 == planes.dtype
-            and jax.devices()[0].platform == "tpu"):
-        from pydsproutines_tpu.ops.pallas.upfirdn import (
-            upfirdn_pallas_viable, _upfirdn_pallas_planes)
-        if upfirdn_pallas_viable(n_out, int(taps_r.shape[-1]), up, down):
-            p2 = planes if planes.shape[0] == 2 else jnp.concatenate(
-                [planes, jnp.zeros_like(planes)], axis=0)
-            out = _upfirdn_pallas_planes(p2, taps_r, up, down, n_out,
-                                         prec=prec)
-            return out[: planes.shape[0]]
-    return _upfirdn_poly_planes(planes, taps_r, up, down, n_out)
 
 
 @functools.partial(jax.jit, static_argnames=("up", "down"))
@@ -270,8 +239,8 @@ def upfirdn(taps: jnp.ndarray, x: jnp.ndarray, up: int, down: int) -> jnp.ndarra
     else:
         planes = x2.astype(rdt)
     if not t_cplx:
-        y = _upfirdn_planes_dispatch(planes, jnp.asarray(taps).astype(rdt),
-                                     up, down, n_out)
+        y = _upfirdn_poly_planes(planes, jnp.asarray(taps).astype(rdt),
+                                 up, down, n_out)
         if x_cplx:
             out = jax.lax.complex(y[:rows], y[rows:])
         else:
@@ -298,7 +267,7 @@ def fir_upfirdn(fir_taps: jnp.ndarray, rs_taps: jnp.ndarray, x: jnp.ndarray,
     (up(a) * up(b) = up(a conv b) at the nonzero taps), so the chain
     ``upfirdn(rs_taps, lfilter_fir(fir_taps, x), up, down)`` equals a single
     upfirdn with combined taps conv(upsample(fir_taps, up), rs_taps). This is
-    the TPU analogue of the reference's fused decimating FIR kernels
+    the analogue of the reference's fused decimating FIR kernels
     (/root/reference/custom_kernels/filter.cu:9 fuses filter+downsample).
 
     Output length matches the two-op chain. The fused form applies the FULL
@@ -318,7 +287,7 @@ def fir_upfirdn(fir_taps: jnp.ndarray, rs_taps: jnp.ndarray, x: jnp.ndarray,
     h_up = jnp.concatenate(
         [ft[:, None], jnp.zeros((t1, up - 1), ft.dtype)],
         axis=1).reshape(-1)[: t1 * up - (up - 1)]
-    # tap combination must be full f32: TPU conv defaults to bf16 passes
+    # tap combination at full f32 (a default-precision conv may run TF32)
     h_comb = jnp.convolve(h_up, jnp.asarray(rs_taps),
                           precision=jax.lax.Precision.HIGHEST)
     n_out = get_upfirdn_size(x.shape[-1], t2, up, down)  # chain-equivalent
@@ -329,26 +298,24 @@ def fir_upfirdn(fir_taps: jnp.ndarray, rs_taps: jnp.ndarray, x: jnp.ndarray,
 def fir_upfirdn_planes_flat(fir_taps: jnp.ndarray, rs_taps: jnp.ndarray,
                             re: jnp.ndarray, im: jnp.ndarray,
                             up: int, down: int):
-    """Flat-plane fused FIR + resample chain: the zero-interleave TPU hot
-    path (same numbers as ``fir_upfirdn`` on ``re + 1j*im``).
+    """Flat-plane fused FIR + resample chain (same numbers as
+    ``fir_upfirdn`` on ``re + 1j*im``).
 
     ``re``/``im`` are 1-D float32 quadrature planes; returns 1-D output
     planes of the chain (length = the two-op chain's output). The complex
-    array never materializes, and the kernel computes ONLY the chain-length
-    output (``fir_upfirdn`` computes the full-conv tail and slices it off).
-    Real taps only (the production chain; complex taps take the composed
-    ops in ``fir_upfirdn``).
+    array never materializes, and only the chain-length output is computed
+    (``fir_upfirdn`` computes the full-conv tail and slices it off). Real
+    taps only (the production chain; complex taps take the composed ops in
+    ``fir_upfirdn``).
     """
     t2 = rs_taps.shape[-1]
     t1 = fir_taps.shape[-1]
     concrete = not (isinstance(fir_taps, jax.core.Tracer)
                     or isinstance(rs_taps, jax.core.Tracer))
     if concrete:
-        # HOST tap combination (round 5): with taps traced, the combine +
-        # band-matrix build re-ran inside every pjit call of a rep loop
-        # (XLA does not hoist across pjit boundaries — a tiny TPU conv op
-        # per call); concrete taps now fold at trace time and the kernel's
-        # K parts embed as program constants.
+        # HOST tap combination: concrete taps fold at trace time and the
+        # band matrix embeds as a program constant (with taps traced, the
+        # combine + band-matrix build re-runs inside every call of a loop).
         hu = np.zeros(t1 * up - (up - 1), np.float64)
         hu[::up] = np.asarray(fir_taps, dtype=np.float64)
         h_comb = np.convolve(hu, np.asarray(rs_taps, dtype=np.float64))
@@ -360,26 +327,10 @@ def fir_upfirdn_planes_flat(fir_taps: jnp.ndarray, rs_taps: jnp.ndarray,
         h_comb = jnp.convolve(h_up, jnp.asarray(rs_taps),
                               precision=jax.lax.Precision.HIGHEST)
     n_out = get_upfirdn_size(re.shape[-1], t2, up, down)
-    # HIGHEST: on real Mosaic, DEFAULT-precision dot RESULTS are
-    # bf16-rounded regardless of operand hi/lo splitting (measured on v5e:
-    # bf16x3 1.6e-3, single-pass 2.2e-3, HIGHEST 2.1e-7 — the
-    # error-compensated 3-pass scheme cannot beat ~1e-3 on chip even
-    # though interpret mode shows 5e-6). f32-grade parity keeps HIGHEST.
     h32 = (h_comb.astype(np.float32) if concrete
            else h_comb.astype(jnp.float32))
-    if jax.devices()[0].platform == "tpu":
-        from pydsproutines_tpu.ops.pallas.upfirdn import (
-            _upfirdn_pallas_planes2, upfirdn_pallas_viable)
-        if upfirdn_pallas_viable(n_out, int(h32.shape[-1]), up, down):
-            # round 5: the planes go to the kernel as SEPARATE operands —
-            # no jnp.stack materialization on the hot path
-            y = _upfirdn_pallas_planes2(
-                re.astype(jnp.float32), im.astype(jnp.float32), h32,
-                up, down, n_out, prec="highest")
-            return y[0], y[1]
     planes = jnp.stack([re.astype(jnp.float32), im.astype(jnp.float32)])
-    y = _upfirdn_planes_dispatch(planes, jnp.asarray(h32), up, down, n_out,
-                                 prec="highest")
+    y = _upfirdn_poly_planes(planes, jnp.asarray(h32), up, down, n_out)
     return y[0], y[1]
 
 
@@ -481,13 +432,6 @@ def medfilt(x: jnp.ndarray, kernel_size: int) -> jnp.ndarray:
         raise ValueError("kernel_size must be odd")
     half = kernel_size // 2
     n = x.shape[-1]
-    # TPU: single-kernel radix select with VMEM-resident windows — exact and
-    # ~500x the sort form (ops/pallas/medfilt.py). Real 1-D float only (the
-    # burst-detection use case); other dtypes take the generic path.
-    if (x.ndim == 1 and jnp.issubdtype(x.dtype, jnp.floating)
-            and jax.devices()[0].platform == "tpu"):
-        from pydsproutines_tpu.ops.pallas.medfilt import medfilt_pallas
-        return medfilt_pallas(x, int(kernel_size))
     xp = jnp.pad(x, (half, half))
     if n * kernel_size <= _MEDFILT_ELEMS:
         idx = jnp.arange(n)[:, None] + jnp.arange(kernel_size)[None, :]

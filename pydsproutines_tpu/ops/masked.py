@@ -4,10 +4,10 @@ Reference semantics: /root/reference/custom_kernels/maskedaccess.cu —
 block-per-row kernels that multiply only mask-selected rows
 (multiplyOnlyMaskedRows :20) or pick one of two multiplicand banks per row
 (multiplyRowsBasedOnMask :49). The reference's own benchmark
-(benchmark_maskedkernels.py) studies masked kernel-launch costs; on TPU the
-predicated form IS the fast form — XLA fuses the jnp.where select into the
-multiply's epilogue, so masked-off rows cost a select, not a branch, and the
-whole batch stays one dense VPU op (no warp divergence analogue)."""
+(benchmark_maskedkernels.py) studies masked kernel-launch costs; here the
+predicated form is the dense one — XLA fuses the jnp.where select into the
+multiply, so masked-off rows cost a select, not a branch, and the whole
+batch stays one elementwise pass."""
 
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def multiply_masked_rows_gathered(mask: jnp.ndarray, x: jnp.ndarray,
                                   mask_value_used=1):
     """Compacting variant: gather the selected rows to the front (fixed
     ``capacity``, the fixed-capacity idiom used throughout for data-dependent
-    outputs) and multiply only those — the TPU answer when the selected
+    outputs) and multiply only those — the choice when the selected
     fraction is small enough that dense predication wastes real bandwidth.
     Returns (rows (capacity, N), count)."""
     m = x.shape[0]

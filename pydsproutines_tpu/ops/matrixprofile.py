@@ -10,7 +10,7 @@ For diagonal d and window W:
     kdiag_d[i] = | sum_{j<W} x[i+j] * conj(x[i+j+d]) |^2
                  / energy[i] / energy[i+d]
 
-TPU-first design: diagonals are batched into a padded (D, N-W+1) matrix —
+Design: diagonals are batched into a padded (D, N-W+1) matrix —
 each row is one diagonal's normalized profile, with zeros past its valid
 length — computed by a vmapped shift-gather + one batched moving-sum
 convolution (the reference CUDA kernel assigns one thread-block per diagonal;

@@ -5,10 +5,10 @@ CovarianceTechnique :187, MUSIC :349, CAPON :471, ESPRIT :500).
 
 Implementation note: these are small-matrix (rows ~ 100) estimators. The
 standalone MUSIC/CAPON/ESPRIT classes are host numpy (they run alongside the
-TPU pipeline on short snapshots — the reference layers it the same way:
+device pipeline on short snapshots — the reference layers it the same way:
 musicXcorr, xcorrRoutines.py:378, downsamples first). The throughput path,
 ``music_xcorr_device``, runs fully on device: batched covariances, a vmapped
-Hermitian eigh (XLA's matmul-based QDWH algorithm on TPU), and the
+Hermitian eigh, and the
 pseudospectrum products, with only the final grids fetched to host.
 """
 
@@ -224,7 +224,7 @@ def music_xcorr(cutout, rx, f_search, ftap, fs: float, dsr: int, plist,
 def _device_cov_fn(n: int, taps_len: int, dsr: int, rows: int,
                    num_shifts: int, fwd_bwd: bool):
     """Jitted batched modulate->filter->polyphase->covariance for music_xcorr:
-    everything per shift EXCEPT the small-matrix SVD runs on the TPU in one
+    everything per shift EXCEPT the small-matrix SVD runs on the device in one
     program; only (num_shifts, rows, rows) covariances come back."""
     import functools
     import jax
@@ -268,9 +268,8 @@ def _device_cov_fn(n: int, taps_len: int, dsr: int, rows: int,
 def _device_music_grid_fn(rows: int, plist, f_norm, use_signal_as_numerator):
     """Jitted batched eig + pseudospectrum over per-shift covariances.
 
-    The eigendecomposition is a vmapped ``jnp.linalg.eigh`` — on TPU XLA
-    lowers Hermitian eigh to its matmul-based QDWH spectral algorithm, so the
-    whole estimator stays on device (round-2 review: the host SVD round-trip
+    The eigendecomposition is a vmapped ``jnp.linalg.eigh``, so the whole
+    estimator stays on device (round-2 review: the host SVD round-trip
     per burst was the cap on MUSIC-based xcorr throughput).
 
     eigh returns eigenvalues ASCENDING; the SVD convention in

@@ -4,7 +4,7 @@ streaming filters/channelizer with halo exchange.
 This layer is the genuinely new part relative to the reference (SURVEY.md
 §2.6): the reference's parallelism is CPU thread striping and single-GPU batch
 tiling; here the same embarrassing parallelism over shifts/channels/time
-blocks is expressed as jax.sharding + shard_map over a device Mesh, with ICI
+blocks is expressed as jax.sharding + shard_map over a device Mesh, with
 collectives (ppermute halo exchange, psum/pmax reductions) instead of threads.
 """
 

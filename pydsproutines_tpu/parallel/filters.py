@@ -4,7 +4,7 @@ The distributed form of the streaming delay-line filter
 (pydsproutines_tpu.ops.filters.stream_lfilter_step, mirroring the reference
 CupyFilter): a long capture is sharded into contiguous time blocks across the
 mesh; each device receives the last len(taps) samples of its left neighbour's
-block via ``ppermute`` over ICI (the overlap-save halo), filters locally, and
+block via ``ppermute`` (the overlap-save halo), filters locally, and
 the concatenation of local outputs equals the single-device filter output
 exactly.
 """

@@ -8,7 +8,7 @@ shift axis is sharded over the mesh with shard_map: rx and the (host-numpy,
 program-constant) plan state are replicated, each device runs the same
 batched gather->CZT/FFT->combine pipeline on its contiguous shift block, and
 the (shifts, k) CAF comes back sharded over shifts (or reduced to one scalar
-peak triple with only scalars on the ICI)."""
+peak triple with only scalars crossing devices)."""
 
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def sharded_group_xcorr_peak(plan, rx: jnp.ndarray, shifts,
                              mesh: jax.sharding.Mesh, axis: str = "dsp",
                              batch_size: int = 32):
     """Global (peak QF^2, best shift, best freq bin) of a GroupXcorrCZT/FFT
-    scan with only per-device scalars crossing the ICI — the multi-chip form
+    scan with only per-device scalars crossing devices — the multi-device form
     of the reference's threaded argmax-after-join."""
     shifts = jnp.asarray(shifts)
     ndev = mesh.shape[axis]

@@ -3,27 +3,27 @@ heartbeat failure detection, and elastic restart-from-checkpoint.
 
 The reference has no distributed layer at all (SURVEY.md §2.6/§5: thread
 striping and single-GPU batches only) — this module is the greenfield part of
-the TPU build. The design follows the standard JAX multi-controller recipe:
+this build. The design follows the standard JAX multi-controller recipe:
 
   * every host runs the same program; ``init_distributed`` wires them into
-    one runtime (``jax.distributed.initialize`` — ICI collectives within a
-    slice, DCN across hosts),
+    one runtime (``jax.distributed.initialize`` — collectives within a
+    host over its device links, over the network across hosts),
   * each host loads only its own time range of the capture
     (``process_shard_bounds`` + ``read_local_capture``: interleaved-int16
     bin files are seekable, so a host reads exactly its slice plus the
-    filter-halo overlap from disk — the DCN never carries bulk samples),
+    filter-halo overlap from disk — the network never carries bulk samples),
   * process-local blocks become one global sharded array via
     ``shard_local_blocks`` (``jax.make_array_from_process_local_data``), on
     which the single-host parallel ops (sharded_wola / sharded_lfilter /
     sharded_caf_peak) work unchanged — a shard_map collective does not care
-    whether the mesh axis spans chips or hosts,
+    whether the mesh axis spans devices or hosts,
   * failure handling is heartbeat files + results-level checkpointing: the
     reference's own recovery model (XcorrDB UNIQUE-keyed rows,
     /root/reference/xcorrDatabase/_core.py:47-69) extended with liveness
     detection so a coordinator can restart a wedged job, resuming at the
     first missing block (models/pipeline.CheckpointedXcorrPipeline).
 
-Everything here is testable without TPU pods: a 2-process CPU cluster with
+Everything here is testable without a device cluster: a 2-process CPU cluster with
 ``--xla_force_host_platform_device_count`` exercises the same code paths
 (gloo collectives across processes) — see tests/test_multihost.py.
 """
@@ -52,8 +52,8 @@ def init_distributed(coordinator_address: str | None = None,
     """Join the multi-host JAX runtime. Idempotent; returns True when running
     multi-process after the call.
 
-    With no arguments, initialization is attempted from the environment (TPU
-    pod metadata or JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/JAX_PROCESS_ID)
+    With no arguments, initialization is attempted from the environment
+    (JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/JAX_PROCESS_ID)
     and silently skipped when nothing indicates a multi-process launch —
     single-host use never needs to call this.
     """
@@ -72,7 +72,7 @@ def init_distributed(coordinator_address: str | None = None,
         env = os.environ.get("JAX_PROCESS_ID")
         process_id = int(env) if env else None
     if coordinator_address is None and num_processes is None:
-        # no explicit cluster spec: let jax autodetect (TPU pods), but don't
+        # no explicit cluster spec: let jax autodetect a cluster, but don't
         # fail single-host runs
         try:
             jax.distributed.initialize()
@@ -89,8 +89,8 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 def host_chip_mesh(axis_names: tuple[str, str] = ("host", "chip")):
-    """(num_hosts, chips_per_host) mesh: the ``host`` axis crosses DCN, the
-    ``chip`` axis stays on ICI. Shard bulk time-blocks over ``host`` and
+    """(num_hosts, chips_per_host) mesh: the ``host`` axis crosses the
+    network, the ``chip`` axis stays on the host's device links. Shard bulk time-blocks over ``host`` and
     latency-sensitive axes (shifts, channels) over ``chip``."""
     import jax
     devs = np.asarray(jax.devices())

@@ -2,7 +2,7 @@
 
 The distributed form of the streaming Channeliser: a long capture is sharded
 into contiguous time blocks; each device pulls a filter-length halo from its
-left neighbour over ICI (``ppermute``), runs the local WOLA fold+IFFT, and
+left neighbour (``ppermute``), runs the local WOLA fold+IFFT, and
 drops the warm-up rows — the row-concatenated output equals the single-device
 wola() of the whole capture exactly (including the N == 2*Dec phase-flip
 parity, kept globally consistent via wola's row_offset).

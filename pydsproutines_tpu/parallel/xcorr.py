@@ -1,12 +1,12 @@
 """Shift-sharded cross-correlation / CAF search.
 
-The TPU-native replacement for the reference's shift-striped CPU threading
+The mesh replacement for the reference's shift-striped CPU threading
 (GroupXcorrFFT.xcorrThreads, /root/reference/xcorrRoutines.py:1114-1135;
 IppXcorrFFT.cpp:95-119): the shift axis is embarrassingly parallel, so shifts
 are sharded across the mesh with shard_map — each device gathers its own rx
 slices (rx is replicated; slices stay local) and runs the same batched
 gather->FFT->argmax pipeline as the single-chip path. Peak reduction uses an
-all-gather of per-device scalar peaks (negligible bytes on ICI).
+all-gather of per-device scalar peaks (negligible bytes between devices).
 
 The jitted shard_map programs are CACHED per (mesh, geometry): building a
 fresh closure per call made every invocation recompile (~seconds), which
@@ -85,7 +85,7 @@ def sharded_caf_peak(cutout: jnp.ndarray, rx: jnp.ndarray,
                      axis: str = "dsp", batch_size: int = 128):
     """Global CAF peak with minimal cross-device traffic: each device reduces
     its own shift range to (best QF^2, best shift, best freq bin) and only
-    those scalars cross the ICI (psum-style all-gather + argmax).
+    those scalars cross devices (all-gather + argmax).
 
     Returns (qf2_peak, best_shift, best_freq_bin) as scalars.
     """

@@ -14,7 +14,7 @@ only while (t - tau) falls inside the signal's time span. Bursty variants add
 per-burst delay offsets (tau + tJump_b) and phases; the multi variant sums
 several bursty emitters.
 
-TPU-first design: the reference threads bursts over CPU cores with
+Design: the reference threads bursts over CPU cores with
 IPP lerp; here each burst is a masked jnp.interp (one fused gather+lerp), and
 bursts/emitters batch with vmap — the whole multi-emitter scene synthesizes in
 a single jit.

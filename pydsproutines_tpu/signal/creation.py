@@ -186,7 +186,7 @@ def propagate_signal_exact(sig: jnp.ndarray, tau: jnp.ndarray, fs: float,
                            f_c: float = 0.0):
     """Exact per-sample delay resampling via the DFT interpolation formula
     (reference propagateSignalExact, signalCreationRoutines.py:331), expressed
-    as one (N, N) matrix product so it rides the MXU instead of an O(N^2)
+    as one (N, N) matrix product instead of an O(N^2)
     python loop: result[n] = (1/N) sum_k exp(1j*2*pi*(n/fs - tau[n])*f_k) X[k].
     """
     n = sig.shape[-1]

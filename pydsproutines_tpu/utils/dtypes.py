@@ -1,7 +1,7 @@
 """Dtype policy.
 
 The reference keeps an explicit dtype discipline (SURVEY.md §1): fast paths are
-complex64/float32, reference/parity paths complex128/float64. On TPU the
+complex64/float32, reference/parity paths complex128/float64. On the GPU the
 compute dtype is complex64 (stored as interleaved float32); float64 paths are
 only used for CPU parity testing (requires ``jax.config.update("jax_enable_x64",
 True)``, done in the test conftest).

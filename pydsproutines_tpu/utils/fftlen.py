@@ -3,7 +3,7 @@
 Mirrors the behaviour of the reference's ``next_fast_len``/``prev_fast_len``
 (/root/reference/spectralRoutines.py:20,48): find the nearest length whose
 prime factorization only contains primes <= maxPrime (default 7). The same
-constraint suits the TPU/XLA FFT well (small mixed radices). Implemented with
+constraint suits XLA's FFT (cuFFT on a GPU) well (small mixed radices). Implemented with
 plain trial division — no sympy dependency.
 
 These are host-side (static-shape) helpers: they run at trace/plan time, never

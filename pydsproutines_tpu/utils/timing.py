@@ -1,7 +1,7 @@
 """Wall-clock timing with event laps (reference /root/reference/timingRoutines.py:12)
 and structured device tracing.
 
-On an async backend like TPU, timing a jax computation requires blocking on the
+On an async backend like a GPU, timing a jax computation requires blocking on the
 result; ``Timer.evt``/``end`` accept an optional array (or pytree) to
 ``block_until_ready`` before taking the timestamp.
 

@@ -4,7 +4,7 @@ Reference semantics: the PySide6 config editor
 (/root/reference/configRoutines/ui/, 959 LoC — window listing sources /
 signals / processings / workspaces with typed edit forms and file
 save/load). Re-expressed in the same stdlib-HTTP pattern as
-viz/webviewer.py so it runs on headless TPU hosts and is drivable from
+viz/webviewer.py so it runs on headless accelerator hosts and is drivable from
 tests: a JSON API over ThreadingHTTPServer plus a single-page form UI.
 
 Capabilities (parity with the reference editor's actions):

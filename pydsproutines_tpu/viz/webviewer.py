@@ -12,7 +12,7 @@ peak tables get a QF^2-vs-TD scatter.
 Design: no GUI toolkit and no third-party JS — a ThreadingHTTPServer serving
 one self-contained HTML page plus a tiny JSON API, so the whole tier is
 drivable headlessly (tests/test_webviewer.py) and usable over SSH port
-forwarding, which is how results browsing actually happens next to a TPU pod.
+forwarding, which is how results browsing happens next to a GPU server.
 
 API:
   GET /                 the single-page app

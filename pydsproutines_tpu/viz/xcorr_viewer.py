@@ -1,7 +1,7 @@
 """Headless xcorr-results database browser.
 
 Reference semantics: /root/reference/xcorrDatabase/viewer.py (a dearpygui
-table browser, :19-342). A TPU production stack is headless, so the browser
+table browser, :19-342). A production accelerator host is headless, so the browser
 is a CLI: list tables, dump metadata + scan parameters, summarize result
 rows, and render a selected type-1 (QF^2 vs time-shift) or type-2 (full CAF
 heatmap) row to a PNG via matplotlib's Agg backend.

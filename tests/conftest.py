@@ -1,7 +1,7 @@
 """Test configuration.
 
-Tests run on CPU with 8 virtual devices so multi-chip sharding paths can be
-exercised without TPU hardware, and with x64 enabled so float64/complex128
+Tests run on CPU with 8 virtual devices so multi-device sharding paths can be
+exercised without accelerator hardware, and with x64 enabled so float64/complex128
 reference-parity tiers are available (the library itself is dtype-explicit).
 """
 
@@ -31,3 +31,11 @@ def rng():
 @pytest.fixture
 def key():
     return jax.random.key(1234)
+
+
+@pytest.fixture
+def keep_cache_config():
+    """Put JAX's compile-cache directory back after a test that sets it."""
+    before = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", before)

@@ -1,5 +1,6 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import scipy.signal as sps
 
 from pydsproutines_tpu.ops.filters import (
@@ -155,31 +156,25 @@ def test_upfirdn_complex_taps_and_signal(rng):
         sps.upfirdn(hc, x, 3, 5), atol=1e-4)
 
 
-def test_upfirdn_pallas_kernel_parity(rng):
-    """The fused Pallas upfirdn kernel (interpret mode) is scipy-exact-grade
-    on complex planes for several (up, down, taps) geometries."""
-    from pydsproutines_tpu.ops.pallas.upfirdn import (
-        _upfirdn_pallas_planes, upfirdn_pallas_viable)
+@pytest.mark.parametrize("up,down,T", [(5, 4, 95), (5, 4, 730), (3, 2, 41),
+                                        (1, 4, 257), (2, 3, 16)])
+def test_upfirdn_scipy_parity_grid(rng, up, down, T):
+    """complex64 upfirdn (real taps) is float32-grade against scipy's
+    float64 upfirdn across rational ratios and tap counts, including
+    outputs that span several 128-aligned blocks plus a ragged tail."""
     from pydsproutines_tpu.ops.filters import get_upfirdn_size
 
-    for up, down, T in ((5, 4, 95), (5, 4, 730), (3, 2, 41), (1, 4, 257),
-                        (2, 3, 16)):
-        cols = 128 * (up // np.gcd(up, down))
-        n_out_min = 2 * 128 * cols
-        n = int(np.ceil(n_out_min * down / up)) + 777
-        n_out = get_upfirdn_size(n, T, up, down)
-        assert upfirdn_pallas_viable(n_out, T, up, down), (up, down, T)
-        x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
-             ).astype(np.complex64)
-        h = rng.standard_normal(T).astype(np.float32)
-        planes = jnp.stack([jnp.asarray(x.real), jnp.asarray(x.imag)])
-        got = np.asarray(_upfirdn_pallas_planes(
-            planes, jnp.asarray(h), up, down, n_out, interpret=True))
-        ref = sps.upfirdn(h.astype(np.float64), x.astype(np.complex128),
-                          up, down)
-        np.testing.assert_allclose(got[0] + 1j * got[1], ref,
-                                   atol=2e-4 * np.sqrt(T), rtol=1e-4,
-                                   err_msg=str((up, down, T)))
+    cols = 128 * (up // np.gcd(up, down))
+    n = int(np.ceil(2 * 128 * cols * down / up)) // 8 + 777
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+         ).astype(np.complex64)
+    h = rng.standard_normal(T).astype(np.float32)
+    got = np.asarray(upfirdn(jnp.asarray(h), jnp.asarray(x), up, down))
+    ref = sps.upfirdn(h.astype(np.float64), x.astype(np.complex128),
+                      up, down)
+    assert got.shape == ref.shape == (get_upfirdn_size(n, T, up, down),)
+    np.testing.assert_allclose(got, ref, atol=2e-4 * np.sqrt(T), rtol=1e-4,
+                               err_msg=str((up, down, T)))
 
 
 def test_fir_upfirdn_fused_matches_chain(rng):
@@ -219,16 +214,19 @@ def test_medfilt_chunked_path_matches_one_shot(rng, monkeypatch):
     np.testing.assert_allclose(got, ref)
 
 
-def test_medfilt_pallas_kernel_exact(rng):
-    """The TPU radix-select medfilt kernel bit-matches scipy (interpret
-    mode here; identical grid/rotate logic on hardware)."""
-    import scipy.signal as sps
-    from pydsproutines_tpu.ops.pallas.medfilt import medfilt_pallas
-    for n, k in [(5000, 129), (4096, 5), (700, 31), (2048, 255)]:
-        x = rng.standard_normal(n).astype(np.float32)
-        got = np.asarray(medfilt_pallas(jnp.asarray(x), k, interpret=True))
-        ref = sps.medfilt(x, k)
-        assert np.array_equal(got, ref), (n, k)
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("n,k", [(5000, 129), (4096, 5), (700, 31),
+                                 (2048, 255)])
+def test_medfilt_scipy_exact(rng, monkeypatch, n, k, chunked):
+    """medfilt bit-matches scipy across window sizes, one-shot and through
+    the chunked long-capture path."""
+    import pydsproutines_tpu.ops.filters as F
+
+    x = rng.standard_normal(n).astype(np.float32)
+    if chunked:
+        monkeypatch.setattr(F, "_MEDFILT_ELEMS", 1 << 14)
+    got = np.asarray(F.medfilt.__wrapped__(jnp.asarray(x), k))
+    assert np.array_equal(got, sps.medfilt(x, k)), (n, k, chunked)
 
 
 def test_fir_upfirdn_planes_flat_matches(rng):
@@ -251,20 +249,3 @@ def test_fir_upfirdn_planes_flat_matches(rng):
         assert got.shape == ref.shape, (up, down)
         scale = max(1.0, np.abs(ref).max())
         assert np.max(np.abs(got - ref)) / scale < 1e-6, (up, down)
-
-
-def test_upfirdn_pallas_bf16x3_accuracy(rng):
-    """The chain's bf16x3 kernel precision stays ~1e-5-grade vs float64
-    (HIGHEST is ~5e-7; DEFAULT bf16 would be ~3e-3)."""
-    import scipy.signal as sps
-    from pydsproutines_tpu.ops.pallas.upfirdn import _upfirdn_pallas_planes
-    n, n_out, up, down = 300_000, 200_000, 5, 4
-    planes = rng.standard_normal((2, n)).astype(np.float32)
-    h = (rng.standard_normal(735) / 27.0).astype(np.float32)
-    ref = np.stack([sps.upfirdn(h.astype(np.float64),
-                                planes[k].astype(np.float64), up, down)[:n_out]
-                    for k in range(2)])
-    b3 = np.asarray(_upfirdn_pallas_planes(
-        jnp.asarray(planes), jnp.asarray(h), up, down, n_out,
-        interpret=True, prec="bf16x3"))
-    assert np.abs(b3 - ref).max() / np.abs(ref).max() < 2e-5

@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pydsproutines_tpu.ops.groupxcorr import (
     GroupXcorr,
@@ -186,13 +187,22 @@ def test_multi_preamble_correlator(key):
     assert qf2[ki, si, ci] > 0.5
 
 
-def test_group_xcorr_fused_kernel_matches_xla(rng):
-    """The single-kernel Pallas group-CAF path (interpret mode) agrees with
-    the XLA tier: planted peak exact, grid within bf16 CAF tolerance."""
+@pytest.mark.parametrize("num_groups,nshifts,batch_size,uneven", [
+    (4, 64, 64, False),     # one full chunk
+    (3, 40, 16, False),     # 2.5 chunks: ragged last chunk trimmed
+    (3, 37, 8, True),       # ragged chunk and unequal group lengths
+])
+def test_group_xcorr_czt_ragged_tail_numpy(rng, num_groups, nshifts,
+                                          batch_size, uneven):
+    """complex64 GroupXcorrCZT over a shift count that does not fill the
+    last chunk matches the float64 NumPy reference on the whole grid and
+    finds the planted shift."""
     fs = 1e6
-    glen, m = 128, 4
-    starts = np.arange(m) * 384
-    lengths = np.full(m, glen)
+    glen = 128
+    starts = np.arange(num_groups) * 384
+    lengths = np.full(num_groups, glen)
+    if uneven:
+        lengths[-1] = glen - 29
     span = int(starts[-1] + glen)
     y = (rng.standard_normal(span)
          + 1j * rng.standard_normal(span)).astype(np.complex64)
@@ -201,47 +211,15 @@ def test_group_xcorr_fused_kernel_matches_xla(rng):
     true_shift = 97
     rx[true_shift: true_shift + span] += y
     bw = fs / glen / 2
-    from pydsproutines_tpu.ops.groupxcorr import GroupXcorrCZT
     gx = GroupXcorrCZT(y, starts, lengths, -8 * bw, 7 * bw, bw, fs)
-    shifts = np.arange(64, 64 + 64)
-
-    ref, _ = gx.xcorr(jnp.asarray(rx), jnp.asarray(shifts), fused=False)
-    consts = gx._fused_consts(batch=64, step=1)
-    assert consts is not None, "geometry must be fused-viable"
-    got = gx._xcorr_fused(jnp.asarray(rx), jnp.asarray(shifts), consts)
-    ref = np.asarray(ref)
+    shifts = np.arange(80, 80 + nshifts)
+    got, _ = gx.xcorr(jnp.asarray(rx), jnp.asarray(shifts),
+                      batch_size=batch_size)
     got = np.asarray(got)
-    assert got.shape == ref.shape
-    ri, rj = np.unravel_index(np.argmax(ref), ref.shape)
-    gi_, gj = np.unravel_index(np.argmax(got), got.shape)
-    assert (ri, rj) == (gi_, gj)
-    assert shifts[ri] == true_shift
-    np.testing.assert_allclose(got[ri, rj], ref[ri, rj], rtol=2e-2)
-    np.testing.assert_allclose(got, ref, rtol=0.2, atol=5e-3 * ref.max())
-
-
-def test_group_xcorr_fused_ragged_tail(rng):
-    """num_shifts not a multiple of the kernel chunk trims exactly."""
-    fs = 1e6
-    glen, m = 128, 3
-    starts = np.arange(m) * 256
-    lengths = np.full(m, glen)
-    span = int(starts[-1] + glen)
-    y = (rng.standard_normal(span)
-         + 1j * rng.standard_normal(span)).astype(np.complex64)
-    rx = (rng.standard_normal(span + 200)
-          + 1j * rng.standard_normal(span + 200)).astype(np.complex64)
-    bw = fs / glen / 2
-    from pydsproutines_tpu.ops.groupxcorr import GroupXcorrCZT
-    gx = GroupXcorrCZT(y, starts, lengths, -4 * bw, 3 * bw, bw, fs)
-    consts = gx._fused_consts(batch=16, step=1)
-    assert consts is not None
-    shifts = np.arange(40)       # 2.5 chunks of 16
-    got = np.asarray(gx._xcorr_fused(jnp.asarray(rx), jnp.asarray(shifts),
-                                     consts))
-    ref = np.asarray(gx.xcorr(jnp.asarray(rx), jnp.asarray(shifts),
-                              fused=False)[0])
-    assert got.shape == ref.shape == (40, gx.plan.k)
-    i = np.argmax(ref.max(axis=1))
-    np.testing.assert_allclose(got[i], ref[i], rtol=5e-2,
-                               atol=1e-2 * ref.max())
+    ref, _ = _np_group_xcorr_czt_reference(
+        y.astype(np.complex128), starts, lengths, -8 * bw, 7 * bw, bw, fs,
+        rx.astype(np.complex128), shifts)
+    assert got.shape == ref.shape == (nshifts, gx.plan.k)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5 * ref.max())
+    si, _ = np.unravel_index(np.argmax(got), got.shape)
+    assert shifts[si] == true_shift

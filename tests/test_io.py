@@ -14,7 +14,7 @@ from pydsproutines_tpu.io import (
     XcorrDB,
     DSPConfig,
 )
-from pydsproutines_tpu.io.binfiles import _native
+from pydsproutines_tpu.io.binfiles import _load_native
 
 
 def _write_capture(path, data_c64):
@@ -53,7 +53,7 @@ def test_multi_bin_read_native_and_fallback(tmp_path):
     expected = np.concatenate(arrays)
     out = multi_bin_read(paths, 64, threads=3)
     assert np.array_equal(out, expected)
-    assert _native is not None, "native loader should be built"
+    assert _load_native() is not None, "native loader should be built"
     # float32 input path exercises the python fallback
     f32 = np.arange(32, dtype=np.float32)
     f32.tofile(str(tmp_path / "f32.bin"))
@@ -253,7 +253,7 @@ def test_streaming_capture_loader(tmp_path):
     the concatenated capture (the continuity property the halo exists for)."""
     import numpy as np
     from pydsproutines_tpu.io.binfiles import (StreamingCaptureLoader,
-                                               _stream_native)
+                                               _load_stream_native)
 
     rng = np.random.default_rng(5)
     samps, nfiles, halo = 1000, 6, 64
@@ -265,7 +265,8 @@ def test_streaming_capture_loader(tmp_path):
         paths.append(str(p))
     full = raw.reshape(-1).astype(np.float32).view(np.complex64)
 
-    assert _stream_native is not None, "native stream lib should be built"
+    assert _load_stream_native() is not None, \
+        "native stream lib should be built"
     got = []
     with StreamingCaptureLoader(paths, samps, halo=halo, num_workers=3,
                                 ring_capacity=3) as ldr:

@@ -96,49 +96,3 @@ def test_burst_fft(rng):
     xp = np.pad(x, (0, 4 * length - 100))
     ref = np.fft.fft(xp.reshape(-1, length).sum(axis=0))
     assert np.max(np.abs(ours - ref)) < 1e-9
-
-
-def test_fft_permuted_output_and_table():
-    """call_permuted + permutation reproduces the natural-order spectrum for
-    2- and 3-factor plans."""
-    from pydsproutines_tpu.ops.fft import FourStepFFT
-    rng = np.random.default_rng(3)
-    for factors in ([64, 64], [16, 16, 16]):
-        n = int(np.prod(factors))
-        plan = FourStepFFT(n, factors=factors)
-        assert plan.viable
-        x = (rng.standard_normal((3, n))
-             + 1j * rng.standard_normal((3, n))).astype(np.complex64)
-        ref = np.fft.fft(x, axis=-1)
-        permuted = np.asarray(plan.call_permuted(jnp.asarray(x)))
-        perm = plan.permutation
-        assert sorted(perm) == list(range(n))
-        natural = np.empty_like(permuted)
-        natural[:, perm] = permuted
-        assert np.max(np.abs(natural - ref)) / np.max(np.abs(ref)) < 1e-5
-        # and the plain call matches too
-        full = np.asarray(plan(jnp.asarray(x)))
-        assert np.max(np.abs(full - ref)) / np.max(np.abs(ref)) < 1e-5
-
-
-def test_small_n_single_stage_dft_tier(rng):
-    """Round 5: 128 <= n < 4096 gets a single-stage DFT-matrix plan (XLA's
-    TPU FFT is launch-bound there); exact vs jnp.fft and identity
-    permutation for the permuted peak path."""
-    from pydsproutines_tpu.ops.fft import get_fft_plan
-
-    for n in (256, 1024, 2048):
-        plan = get_fft_plan(n, "complex64")
-        assert plan.viable and plan.factors == [n]
-        x = (rng.standard_normal((3, n))
-             + 1j * rng.standard_normal((3, n))).astype(np.complex64)
-        got = np.asarray(plan(jnp.asarray(x)))
-        ref = np.fft.fft(x, axis=-1)
-        rel = np.abs(got - ref).max() / np.abs(ref).max()
-        assert rel < 2e-3, (n, rel)   # bf16-grade default einsum
-        perm = plan.permutation
-        assert np.array_equal(perm, np.arange(n))
-        gp = np.asarray(plan.call_permuted(jnp.asarray(x)))
-        assert np.array_equal(gp, got)
-    # below the tier floor stays naive-fft
-    assert not get_fft_plan(64, "complex64").viable

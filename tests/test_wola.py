@@ -1,5 +1,6 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import scipy.signal as sps
 
 from pydsproutines_tpu.ops.wola import wola, Channeliser
@@ -87,41 +88,66 @@ def test_channeliser_freqs():
     assert c.channel_fs(8000.0) == 1000.0
 
 
-def test_wola_fused_kernel_parity(rng):
-    """Fused fold+IDFT Pallas kernel (interpret mode) matches wola() across
-    tail shapes, including the single-grid-step edge (nsteps == 1)."""
-    from pydsproutines_tpu.ops.pallas.wola_fused import (wola_fused,
-                                                         wola_fused_viable)
-
-    nch = 64
-    h = rng.standard_normal(2048).astype(np.float32)
-    for rows in (600, 2048, 4099):
-        n = nch * rows
-        x = (rng.standard_normal(n)
-             + 1j * rng.standard_normal(n)).astype(np.complex64)
-        ref = np.asarray(wola(jnp.asarray(h), jnp.asarray(x), nch, nch))
-        got = np.asarray(wola_fused(jnp.asarray(h), jnp.asarray(x), nch, nch,
-                                    interpret=True))
-        err = np.max(np.abs(ref - got)) / np.max(np.abs(ref))
-        assert got.shape == ref.shape
-        assert err < 1e-5, (rows, err)
+def _np_wola_vectorized(f_tap, x, dec, n):
+    """float64 reference: the same fold as _np_wola_reference, vectorized
+    over output rows (a (rows, L) window gather)."""
+    L = len(f_tap)
+    rows = len(x) // dec
+    idx = np.arange(rows)[:, None] * dec - np.arange(L)[None, :]
+    win = np.where(idx >= 0, x[np.clip(idx, 0, None)], 0)
+    folded = (win * f_tap[None, :]).reshape(rows, L // n, n).sum(axis=1)
+    out = np.fft.ifft(folded, axis=-1) * n
+    if n == 2 * dec:
+        out[1::2, 1::2] *= -1
+    return out
 
 
-def test_wola_fused_viability_gate():
-    from pydsproutines_tpu.ops.pallas.wola_fused import wola_fused_viable
+@pytest.mark.parametrize("rows", [301, 600])
+@pytest.mark.parametrize("nch,B", [(64, 32), (128, 16), (256, 8)])
+def test_wola_float64_reference_wide(rng, nch, B, rows):
+    """complex64 WOLA at channelizer widths agrees with a float64 reference
+    to float32 grade, including ragged tails (len(x) not a row multiple)."""
+    h = np.hanning(nch * B)
+    x = (rng.standard_normal(rows * nch + nch // 3)
+         + 1j * rng.standard_normal(rows * nch + nch // 3))
+    x = x.astype(np.complex64)
+    got = np.asarray(wola(jnp.asarray(h, jnp.float32), jnp.asarray(x),
+                          nch, nch))
+    ref = _np_wola_vectorized(h, x.astype(np.complex128), nch, nch)
+    assert got.shape == ref.shape == (rows, nch)
+    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 2e-6
 
-    assert wola_fused_viable(64, 64, 2048, 131072, np.complex64)
-    assert not wola_fused_viable(64, 32, 2048, 131072, np.complex64)  # 2*dec
-    assert not wola_fused_viable(48, 48, 1536, 131072, np.complex64)  # lanes
-    assert not wola_fused_viable(64, 64, 2048, 131072, np.complex128)
-    assert not wola_fused_viable(64, 64, 64 * 4, 131072, np.complex64)  # B%8
-    assert not wola_fused_viable(64, 64, 2048, 100, np.complex64)  # tiny
+
+@pytest.mark.parametrize("dec", [32, 64, 128])
+def test_wola_float64_reference_oversampled(rng, dec):
+    """n == 2*dec (oversampled) at channelizer widths, odd-row flip
+    included, agrees with the float64 reference."""
+    n = 2 * dec
+    h = np.hanning(n * 8)
+    x = (rng.standard_normal(dec * 333)
+         + 1j * rng.standard_normal(dec * 333)).astype(np.complex64)
+    got = np.asarray(wola(jnp.asarray(h, jnp.float32), jnp.asarray(x),
+                          dec, n))
+    ref = _np_wola_vectorized(h, x.astype(np.complex128), dec, n)
+    assert got.shape == ref.shape
+    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 2e-6
+
+
+@pytest.mark.parametrize("dec,n", [(16, 16), (8, 16)])
+def test_wola_complex_taps(rng, dec, n):
+    """Complex prototype taps (frequency-shifted filters) fold with their
+    imaginary part on both geometries."""
+    L = 4 * n
+    h = sps.firwin(L, 1.0 / dec) * np.exp(2j * np.pi * 0.1 * np.arange(L))
+    x = rng.standard_normal(dec * 50) + 1j * rng.standard_normal(dec * 50)
+    got = np.asarray(wola(jnp.asarray(h), jnp.asarray(x), dec, n))
+    ref = _np_wola_reference(h, x, dec, n)
+    assert np.max(np.abs(got - ref)) < 1e-9
 
 
 def test_wola_planes_matches_complex_api(rng):
     """wola_planes (quadrature-plane I/O) must equal wola on the complex
-    array, on both supported geometries (fallback route on CPU; the fused
-    route's parity is covered by test_wola_fused_kernel_parity)."""
+    array, on both supported geometries."""
     from pydsproutines_tpu.ops.wola import wola, wola_planes
 
     h = rng.standard_normal(512).astype(np.float32)
@@ -139,8 +165,7 @@ def test_wola_planes_matches_complex_api(rng):
 
 
 def test_wola_planes_flat_matches(rng):
-    """Flat-plane surface returns the row-major channel matrix bytes:
-    CPU fallback here; the fused flat kernel in interpret mode below."""
+    """Flat-plane surface returns the row-major channel matrix bytes."""
     from pydsproutines_tpu.ops.wola import wola, wola_planes_flat
 
     h = rng.standard_normal(512).astype(np.float32)
@@ -153,54 +178,3 @@ def test_wola_planes_flat_matches(rng):
                                   64, 64)
     got = (np.asarray(f_re) + 1j * np.asarray(f_im)).reshape(ref.shape)
     assert np.max(np.abs(got - ref)) < 1e-9
-
-
-def test_wola_fused_flat_kernel_parity(rng):
-    """Fused flat-plane kernel (interpret mode) == 2-D plane kernel bytes,
-    across tail shapes incl. odd rows (pair padding) and nsteps == 1."""
-    from pydsproutines_tpu.ops.pallas.wola_fused import (
-        wola_fused_planes2, wola_fused_planes_flat)
-
-    nch = 64
-    h = rng.standard_normal(2048).astype(np.float32)
-    for rows in (600, 2048, 4099):
-        n = nch * rows
-        re = rng.standard_normal(n).astype(np.float32)
-        im = rng.standard_normal(n).astype(np.float32)
-        o2_re, o2_im = wola_fused_planes2(
-            jnp.asarray(h), jnp.asarray(re.reshape(rows, nch)),
-            jnp.asarray(im.reshape(rows, nch)), nch, nch, interpret=True)
-        f_re, f_im = wola_fused_planes_flat(
-            jnp.asarray(h), jnp.asarray(re), jnp.asarray(im), nch, nch,
-            interpret=True)
-        assert np.array_equal(np.asarray(f_re),
-                              np.asarray(o2_re).reshape(-1)), rows
-        assert np.array_equal(np.asarray(f_im),
-                              np.asarray(o2_im).reshape(-1)), rows
-
-
-def test_wola_fused_direct_kernel_parity(rng):
-    """Round-5 plane-direct fused kernel (n in {128, 256}, interpret mode)
-    matches wola() across tail shapes, incl. flat-plane I/O byte parity."""
-    from pydsproutines_tpu.ops.pallas.wola_fused import (
-        wola_fused, wola_fused_planes_flat, wola_fused_viable)
-
-    for nch, B in ((128, 16), (256, 8)):
-        h = np.hanning(nch * B).astype(np.float32)
-        assert wola_fused_viable(nch, nch, nch * B, 4096, np.complex64)
-        for rows in (301, 2100):
-            x = (rng.standard_normal(rows * nch)
-                 + 1j * rng.standard_normal(rows * nch)).astype(np.complex64)
-            ref = np.asarray(wola(jnp.asarray(h), jnp.asarray(x), nch, nch))
-            got = np.asarray(wola_fused(jnp.asarray(h), jnp.asarray(x),
-                                        nch, nch, interpret=True))
-            err = np.max(np.abs(ref - got)) / np.max(np.abs(ref))
-            assert got.shape == ref.shape
-            assert err < 1e-5, (nch, rows, err)
-        # flat-plane surface: same bytes as the complex API
-        fr, fi = wola_fused_planes_flat(
-            jnp.asarray(h), jnp.real(jnp.asarray(x)).astype(jnp.float32),
-            jnp.imag(jnp.asarray(x)).astype(jnp.float32), nch, nch,
-            interpret=True)
-        flat = np.asarray(fr) + 1j * np.asarray(fi)
-        assert np.array_equal(flat.reshape(ref.shape), got)
